@@ -1,5 +1,5 @@
-"""Part 2 of the fused-stage decomposition: where do the ~148 ms of
-member packing go, and what does decode-before-sort save?
+"""Part 2 of the fused-stage decomposition: where does the member
+packing time go, and what does decode-before-sort save?
 
 Pieces (same bench grid/tier as experiments/fused_breakdown.py):
   g+mask        gather + interior mask (returns masked srow)
@@ -21,24 +21,23 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-if jax.default_backend() != "cpu" and not jax.config.jax_compilation_cache_dir:
-    jax.config.update("jax_compilation_cache_dir", "/tmp/so_tpu_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from so_jax.runtime import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from functools import partial
 
 from bench import make_box
-from so_tpu.engine.members import _pack_prefix
-from so_tpu.engine.solver import (_foot_stage, _pad_b, _pick_level_span,
+from so_jax.engine.members import _pack_prefix
+from so_jax.engine.solver import (_foot_stage, _pad_b, _pick_level_span,
                                   _stage_grid, k_slab_max, solve_rvir)
-from so_tpu.ops import build_grid
-from so_tpu.ops.gather import cell_ranges, slab_gather
-from so_tpu.ops.pallas_gather import decode_idx, pallas_slab_gather
+from so_jax.ops import build_grid
+from so_jax.ops.gather import cell_ranges, slab_gather
+from so_jax.ops.slab import decode_idx, slab_slots
 
 
 def sync(o):
-    leaf = jax.tree_util.tree_leaves(o)[0]
-    np.asarray(jax.device_get(jnp.ravel(leaf)[:1]))
+    jax.block_until_ready(o)
 
 
 def timeit(name, f, *a):
@@ -132,7 +131,7 @@ def main():
         """slab gather with the idx pair decoded BEFORE the sort."""
         st, cnt, q, total = cell_ranges(g, level, cc, rr, r2, S,
                                         align=g.chunk)
-        out = pallas_slab_gather(g.soa8t, st, cnt, q, cc, g.period, r2, K,
+        out = slab_slots(g.soa8t, st, cnt, q, cc, g.period, r2, K,
                                  chans=("ilo", "ihi"), CHUNK=g.chunk)
         d2 = out[:, 0, :]
         idx = decode_idx(out[:, 1, :], out[:, 2, :])

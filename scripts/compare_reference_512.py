@@ -1,16 +1,15 @@
-"""512^3-class parity spot-check: so_tpu (TPU) vs the reference (CPU).
+"""512^3-class parity spot-check: so_jax (GPU) vs the reference (CPU).
 
 Runs BOTH implementations on the exact snapshot experiments/scale512.py
 measures (bench.make_box, seed 12345, 1.34e8 particles) with a
 subsampled catalog (the reference needs hours for the full 65,536
-centers at this N; the VERDICT's "subsampled catalog is fine"), and
+centers at this N; a subsampled catalog is fine), and
 diffs every output file — the same whole-pipeline comparison as
 scripts/compare_reference_scale.py (reference: so.c:192-575 main pass)
 at the BASELINE.md 512^3 ladder rung.
 
 Usage: python scripts/compare_reference_512.py [n_particles] [n_centers]
-Defaults: 512^3 particles, 192 centers. Reuses the scale512 box cache
-(/tmp/so_scale_box_*.npz) when present. Run detached — the reference
+Defaults: 512^3 particles, 192 centers. Run detached — the reference
 side builds a kd-tree over all 1.34e8 particles on one CPU core and
 writes a ~1 GB ASCII .sogrp.
 """
@@ -35,34 +34,19 @@ from make_goldens import build_reference  # noqa: E402
 from util_compare import compare_exact_file, compare_file  # noqa: E402
 
 from bench import make_box  # noqa: E402
-from so_tpu.io.tipsy import DARK_DTYPE, TipsyHeader, write_tipsy  # noqa: E402
+from so_jax.io.tipsy import DARK_DTYPE, TipsyHeader, write_tipsy  # noqa: E402
 from tests.fixtures import write_gtp  # noqa: E402
 
 
-def _enable_compile_cache():
-    import jax
-
-    if (jax.default_backend() != "cpu"
-            and not jax.config.jax_compilation_cache_dir):
-        jax.config.update("jax_compilation_cache_dir", "/tmp/so_tpu_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
-
 def main(n_particles=512 ** 3, n_centers=192):
-    _enable_compile_cache()
+    from so_jax.runtime import enable_compile_cache
+
+    enable_compile_cache()
     n_halos = 65536  # the scale512 catalog this subsamples
-    cache = f"/tmp/so_scale_box_{n_particles}_{n_halos}.npz"
     t0 = time.perf_counter()
-    if os.path.exists(cache):
-        d = np.load(cache)
-        pos, mass, vel = d["pos"], d["mass"], d["vel"]
-        centers, rgtp = d["centers"], d["rgtp"]
-        print(f"box: loaded scale512 cache in {time.perf_counter() - t0:.0f}s",
-              flush=True)
-    else:
-        rng = np.random.default_rng(12345)  # scale512's seed
-        pos, mass, vel, centers, rgtp = make_box(rng, n_particles, n_halos)
-        print(f"box: generated in {time.perf_counter() - t0:.0f}s", flush=True)
+    rng = np.random.default_rng(12345)  # scale512's seed
+    pos, mass, vel, centers, rgtp = make_box(rng, n_particles, n_halos)
+    print(f"box: generated in {time.perf_counter() - t0:.0f}s", flush=True)
 
     sub = np.random.default_rng(99).choice(centers.shape[0], n_centers,
                                            replace=False)
@@ -71,7 +55,7 @@ def main(n_particles=512 ** 3, n_centers=192):
     gtp_mass = np.random.default_rng(98).uniform(
         0.001, 1.0, n_centers).astype(np.float32)
 
-    work = tempfile.mkdtemp(prefix="so_512cmp_", dir="/tmp")
+    work = tempfile.mkdtemp(prefix="so_512cmp_")
     n = pos.shape[0]
     t0 = time.perf_counter()
     dark = np.zeros(n, DARK_DTYPE[False])
@@ -101,12 +85,12 @@ def main(n_particles=512 ** 3, n_centers=192):
     print(f"reference: wall {ref_wall:.1f}s, kdSO {ref_solver:.3f}s",
           flush=True)
 
-    from so_tpu.cli import main as so_main
+    from so_jax.cli import main as so_main
     t0 = time.perf_counter()
     so_main(["-i", f"{work}/cat.gtp", "-o", f"{work}/got", "--tipsy",
              f"{work}/snap.bin", "-grp", "-gtp", "--verbose"])
     our_wall = time.perf_counter() - t0
-    print(f"so_tpu: wall {our_wall:.1f}s", flush=True)
+    print(f"so_jax: wall {our_wall:.1f}s", flush=True)
 
     errs = compare_file(f"{work}/ref.sovcirc", f"{work}/got.sovcirc")
     grp_errs = compare_exact_file(f"{work}/ref.sogrp", f"{work}/got.sogrp")
@@ -116,7 +100,7 @@ def main(n_particles=512 ** 3, n_centers=192):
         print(e, flush=True)
     ok = len(errs) == 0 and not grp_errs
     print(f"512 COMPARE {'PASS' if ok else 'PARTIAL'} "
-          f"(ref wall {ref_wall:.0f}s / kdSO {ref_solver:.0f}s vs so_tpu "
+          f"(ref wall {ref_wall:.0f}s / kdSO {ref_solver:.0f}s vs so_jax "
           f"wall {our_wall:.0f}s on the same {n / 1e6:.0f}M-particle box)")
 
 

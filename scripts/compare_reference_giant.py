@@ -1,12 +1,12 @@
-"""Giant-tier parity comparison: so_tpu (TPU) vs the reference (CPU).
+"""Giant-tier parity comparison: so_jax (GPU) vs the reference (CPU).
 
 The ≥1e5-candidate capacity tiers — the code that OOM'd twice in round 4
 (K≥2^18 slab giants, the K>k_slab XLA fallback, and the round-5
 whole-box terminal tier for uniform-mass grids) — were only exercised by
-ad-hoc scale runs before this script (VERDICT r4 item 7). It builds a
+ad-hoc scale runs before this script. It builds a
 box with one ~1.6e6-particle r^-2 mega-clump (so a handful of halos
 escalate straight through every giant tier) on a uniform background,
-runs the compiled reference and the so_tpu CLI on identical inputs in
+runs the compiled reference and the so_jax CLI on identical inputs in
 TWO mass variants, and diffs every output file:
 
   general  non-uniform masses: the giant slab tiers (K up to 2^19) and
@@ -20,7 +20,7 @@ solver._dbg_stage), so a future heuristic change silently rerouting the
 giants cannot turn this into a vacuous pass.
 
 Usage: python scripts/compare_reference_giant.py [n_bg] [n_clump] [n_small]
-Defaults: 3.4e6 background, 1.6e6 clump, 60 small centers (TPU run).
+Defaults: 3.4e6 background, 1.6e6 clump, 60 small centers (GPU run).
 CPU smoke: python scripts/compare_reference_giant.py 200000 120000 12
 (the giant tiers then trigger at proportionally smaller K — the spy
 asserts against the actual k_slab ceilings either way).
@@ -45,17 +45,8 @@ sys.path.insert(0, os.path.join(ROOT, "tests"))
 from make_goldens import build_reference  # noqa: E402
 from util_compare import compare_exact_file, compare_file  # noqa: E402
 
-from so_tpu.io.tipsy import DARK_DTYPE, TipsyHeader, write_tipsy  # noqa: E402
+from so_jax.io.tipsy import DARK_DTYPE, TipsyHeader, write_tipsy  # noqa: E402
 from tests.fixtures import write_gtp  # noqa: E402
-
-
-def _enable_compile_cache():
-    import jax
-
-    if (jax.default_backend() != "cpu"
-            and not jax.config.jax_compilation_cache_dir):
-        jax.config.update("jax_compilation_cache_dir", "/tmp/so_tpu_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 
 def make_giant_box(rng, n_bg, n_clump):
@@ -97,7 +88,7 @@ def run_variant(tag, pos, mass, centers, rgtp, cat_mass, work, so_bin,
           flush=True)
 
     # spy on the solve dispatches so the giant paths PROVABLY fired
-    from so_tpu.engine import solver
+    from so_jax.engine import solver
 
     seen = []
     orig_dbg = solver._dbg_stage
@@ -106,7 +97,7 @@ def run_variant(tag, pos, mass, centers, rgtp, cat_mass, work, so_bin,
         seen.append((name, int(kv.get("K", 0))))
         return orig_dbg(name, t0, **kv)
 
-    from so_tpu.cli import main as so_main
+    from so_jax.cli import main as so_main
 
     solver._dbg_stage = spy
     try:
@@ -117,7 +108,7 @@ def run_variant(tag, pos, mass, centers, rgtp, cat_mass, work, so_bin,
         our_wall = time.perf_counter() - t0
     finally:
         solver._dbg_stage = orig_dbg
-    print(f"[{tag}] so_tpu: wall {our_wall:.1f}s", flush=True)
+    print(f"[{tag}] so_jax: wall {our_wall:.1f}s", flush=True)
 
     if giant_kind == "wbox":
         n_wbox = sum(1 for nm, _ in seen if nm == "wbox")
@@ -146,7 +137,9 @@ def run_variant(tag, pos, mass, centers, rgtp, cat_mass, work, so_bin,
 
 
 def main(n_bg=3_400_000, n_clump=1_600_000, n_small=60):
-    _enable_compile_cache()
+    from so_jax.runtime import enable_compile_cache
+
+    enable_compile_cache()
     rng = np.random.default_rng(515151)
     pos, c, rmax = make_giant_box(rng, n_bg, n_clump)
     n = pos.shape[0]
@@ -165,7 +158,7 @@ def main(n_bg=3_400_000, n_clump=1_600_000, n_small=60):
                            .astype(np.float32)])
     cat_mass = rng.uniform(0.001, 1.0, centers.shape[0]).astype(np.float32)
 
-    work = tempfile.mkdtemp(prefix="so_giant_", dir="/tmp")
+    work = tempfile.mkdtemp(prefix="so_giant_")
     results = {}
     with tempfile.TemporaryDirectory() as build:
         so_bin = build_reference(build)

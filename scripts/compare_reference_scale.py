@@ -1,7 +1,7 @@
-"""At-scale parity + speed comparison: so_tpu (TPU) vs the reference (CPU).
+"""At-scale parity + speed comparison: so_jax (GPU) vs the reference (CPU).
 
 Generates a 128^3-class clustered snapshot with a few thousand centers,
-runs the compiled reference binary and the so_tpu CLI on identical inputs,
+runs the compiled reference binary and the so_jax CLI on identical inputs,
 compares every output, and reports both solver wall times.
 
 Usage: python scripts/compare_reference_scale.py [n_particles] [n_halos]
@@ -29,23 +29,14 @@ from util_compare import compare_exact_file, compare_file  # noqa: E402
 
 sys.path.insert(0, ROOT)
 from bench import make_box  # noqa: E402
-from so_tpu.io.tipsy import DARK_DTYPE, TipsyHeader, write_tipsy  # noqa: E402
+from so_jax.io.tipsy import DARK_DTYPE, TipsyHeader, write_tipsy  # noqa: E402
 from tests.fixtures import write_gtp  # noqa: E402
 
 
-def _enable_compile_cache():
-    import jax
-
-    if (jax.default_backend() != "cpu"
-            and not jax.config.jax_compilation_cache_dir):
-        # (CPU excluded: this image's XLA:CPU AOT loader mis-reads its
-        # own cache entries; see tests/conftest.py)
-        jax.config.update("jax_compilation_cache_dir", "/tmp/so_tpu_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
-
 def main(n_particles=2 ** 21, n_halos=4096):
-    _enable_compile_cache()
+    from so_jax.runtime import enable_compile_cache
+
+    enable_compile_cache()
     rng = np.random.default_rng(777)
     pos, mass, vel, centers, rgtp = make_box(rng, n_particles, n_halos)
     work = tempfile.mkdtemp(prefix="so_scale_")
@@ -74,12 +65,12 @@ def main(n_particles=2 ** 21, n_halos=4096):
     ref_solver = float(m.group(1)) if m else float("nan")
     print(f"reference: wall {ref_wall:.1f}s, kdSO {ref_solver:.3f}s", flush=True)
 
-    from so_tpu.cli import main as so_main
+    from so_jax.cli import main as so_main
     t0 = time.perf_counter()
     so_main(["-i", f"{work}/cat.gtp", "-o", f"{work}/got", "--tipsy",
              f"{work}/snap.bin", "-grp", "-gtp", "--verbose"])
     our_wall = time.perf_counter() - t0
-    print(f"so_tpu: wall {our_wall:.1f}s", flush=True)
+    print(f"so_jax: wall {our_wall:.1f}s", flush=True)
 
     errs = compare_file(f"{work}/ref.sovcirc", f"{work}/got.sovcirc")
     grp_errs = compare_exact_file(f"{work}/ref.sogrp", f"{work}/got.sogrp")
@@ -88,7 +79,7 @@ def main(n_particles=2 ** 21, n_halos=4096):
     for e in errs[:8]:
         print(e, flush=True)
     print(f"SCALE COMPARE {'PASS' if len(errs) == 0 and not grp_errs else 'PARTIAL'} "
-          f"(ref kdSO {ref_solver:.2f}s vs so_tpu solve phases above)")
+          f"(ref kdSO {ref_solver:.2f}s vs so_jax solve phases above)")
 
 
 if __name__ == "__main__":

@@ -11,7 +11,7 @@ dark-only bench box does not: the iOrder species windows
 scans whose cumulative mass is dominated by occasional heavyweight
 background hits rather than uniform-mass counts.
 
-Runs the compiled reference and the so_tpu CLI with
+Runs the compiled reference and the so_jax CLI with
 ``-all -grp -gtp -subsumed -ignored`` on identical inputs and compares
 every output file (.sovcirc/.sodark/.sogas/.sostar float-tolerant,
 .sogrp/.sosub/.soign exact, .sogtp field-aware).
@@ -50,19 +50,10 @@ OUTS = ["sovcirc", "sodark", "sogas", "sostar", "sogrp", "sogtp",
 EXACT = {"sogrp", "sosub", "soign"}
 
 
-def _enable_compile_cache():
-    import jax
-
-    if (jax.default_backend() != "cpu"
-            and not jax.config.jax_compilation_cache_dir):
-        # (CPU excluded: this image's XLA:CPU AOT loader mis-reads its
-        # own cache entries; see tests/conftest.py)
-        jax.config.update("jax_compilation_cache_dir", "/tmp/so_tpu_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
-
 def main(n_hi=6 << 20, n_lo=1 << 20, n_halos=4096):
-    _enable_compile_cache()
+    from so_jax.runtime import enable_compile_cache
+
+    enable_compile_cache()
     rng = np.random.default_rng(2026)
     t0 = time.perf_counter()
     data, split, centers, rmax = make_zoom_box(rng, n_hi, n_lo, n_halos,
@@ -88,12 +79,12 @@ def main(n_hi=6 << 20, n_lo=1 << 20, n_halos=4096):
     print(f"reference: wall {ref_wall:.1f}s, kdSO {ref_solver:.3f}s",
           flush=True)
 
-    from so_tpu.cli import main as so_main
+    from so_jax.cli import main as so_main
     t0 = time.perf_counter()
     so_main(["-i", f"{work}/cat.gtp", "-o", f"{work}/got", "--tipsy",
              f"{work}/snap.bin", "--verbose"] + FLAGS)
     our_wall = time.perf_counter() - t0
-    print(f"so_tpu: wall {our_wall:.1f}s", flush=True)
+    print(f"so_jax: wall {our_wall:.1f}s", flush=True)
 
     errs = []
     for ext in OUTS:
@@ -111,7 +102,7 @@ def main(n_hi=6 << 20, n_lo=1 << 20, n_halos=4096):
         print(e, flush=True)
     print(f"ZOOM COMPARE {'PASS' if not errs else 'FAIL'} "
           f"(ref kdSO {ref_solver:.2f}s, ref wall {ref_wall:.1f}s, "
-          f"so_tpu wall {our_wall:.1f}s)")
+          f"so_jax wall {our_wall:.1f}s)")
     return 0 if not errs else 1
 
 

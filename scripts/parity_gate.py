@@ -1,9 +1,10 @@
-"""Automated on-device parity gate (VERDICT r2 missing #4).
+"""Automated on-device parity gate.
 
 Runs, each in a FRESH subprocess (platform/jit state is sticky):
 
-  1. scripts/run_goldens_tpu.py  — golden scenarios end-to-end on the real
-     device (Pallas slab path + fused escalation + conflict protocol);
+  1. chip_smoke.py — golden scenarios end-to-end on the card (slab path +
+     fused escalation + conflict protocol) and the 2^21-particle box
+     against a CPU run of the same command;
   2. scripts/compare_reference_scale.py — at-scale (2M/4096 default)
      output parity + wall-time comparison against the freshly compiled
      reference binary;
@@ -12,15 +13,15 @@ Runs, each in a FRESH subprocess (platform/jit state is sticky):
      the BASELINE.md ladder config the dark-only boxes don't cover);
   4. scripts/compare_reference_giant.py — giant-tier parity (a
      ~1.6e6-candidate mega-clump through the K>=2^18 slab tiers, the
-     K>k_slab XLA fallback and the uniform-mass whole-box terminal
+     K>k_slab ragged fallback and the uniform-mass whole-box terminal
      stage, with dispatch-spy asserts that those paths fired).
 
-and appends a dated pass/fail + timing block to RESULTS_TPU.md, so every
-round leaves a committed on-device parity artifact instead of run-by-hand
-evidence. Exit code 0 only if every stage passed.
+and prints a dated pass/fail + timing report naming the device and the
+git revision. Exit code 0 only if every stage passed. Stages 2-4 build
+the compiled reference from /root/reference (tests/reference_oracle.py).
 
 Usage: python scripts/parity_gate.py [--quick]
-  --quick  skips the at-scale comparison (goldens only)
+  --quick  skips the reference comparisons (chip_smoke.py only)
 """
 
 from __future__ import annotations
@@ -52,9 +53,9 @@ def run(cmd, timeout):
 
 def main(argv):
     quick = "--quick" in argv
-    stages = [("goldens_tpu",
-               [sys.executable, os.path.join(HERE, "run_goldens_tpu.py")],
-               3600)]
+    stages = [("chip_smoke",
+               [sys.executable, os.path.join(ROOT, "chip_smoke.py")],
+               1800)]
     if not quick:
         stages.append(
             ("reference_scale",
@@ -67,18 +68,14 @@ def main(argv):
                                            "compare_reference_zoom.py")],
              3600))
         stages.append(
-            # giant-tier certification (VERDICT r4 item 7): ~1.6e6-candidate
-            # halos through the K>=2^18 slab tiers, the K>k_slab XLA
-            # fallback (general masses) and the whole-box terminal stage
+            # giant-tier certification: ~1.6e6-candidate halos through
+            # the K>=2^18 slab tiers, the K>k_slab ragged fallback (general masses) and the whole-box terminal stage
             # (uniform masses), with dispatch-spy asserts that those paths
             # actually fired
             ("reference_giant",
              [sys.executable, os.path.join(HERE,
                                            "compare_reference_giant.py")],
              3600))
-
-    import jax   # device identity only; stages run in fresh processes
-    device = jax.devices()[0].device_kind
 
     results = []
     for name, cmd, timeout in stages:
@@ -93,22 +90,17 @@ def main(argv):
     git = subprocess.run(["git", "rev-parse", "--short", "HEAD"],
                          capture_output=True, text=True, cwd=ROOT)
     rev = git.stdout.strip() or "?"
-    block = [f"\n## {stamp} — {'PASS' if all_ok else 'FAIL'} "
-             f"(device: {device}, rev {rev})\n"]
+    # device identity from a child that has finished with the card: the
+    # stages above ran in fresh processes, so this one holds no card
+    dev = subprocess.run(
+        [sys.executable, "-c",
+         "import jax; d = jax.devices()[0]; print(d.platform, d.device_kind)"],
+        capture_output=True, text=True, cwd=ROOT).stdout.strip()
+    print(f"\n## {stamp} — {'PASS' if all_ok else 'FAIL'} "
+          f"(device: {dev or '?'}, rev {rev})")
     for name, ok, dt, tail in results:
-        block.append(f"### {name}: {'PASS' if ok else 'FAIL'} ({dt:.0f}s)\n")
-        block.append("```\n" + tail + "\n```\n")
-    path = os.path.join(ROOT, "RESULTS_TPU.md")
-    new = not os.path.exists(path)
-    with open(path, "a") as fp:
-        if new:
-            fp.write("# On-device parity gate log\n\n"
-                     "Appended by scripts/parity_gate.py — one dated "
-                     "pass/fail + timing block per run (golden scenarios "
-                     "on the real device, then at-scale output parity vs "
-                     "the compiled reference).\n")
-        fp.write("".join(block))
-    print(f"wrote {path}: {'PASS' if all_ok else 'FAIL'}", flush=True)
+        print(f"### {name}: {'PASS' if ok else 'FAIL'} ({dt:.0f}s)")
+        print("```\n" + tail + "\n```", flush=True)
     return 0 if all_ok else 1
 
 

@@ -1,4 +1,4 @@
-"""One process of a real multi-controller `so_tpu --distributed` CLI run.
+"""One process of a real multi-controller `so_jax --distributed` CLI run.
 
 Launched (N times) by tests/test_distributed.py::test_distributed_cli_*:
 
@@ -6,8 +6,8 @@ Launched (N times) by tests/test_distributed.py::test_distributed_cli_*:
         <local_devices> <workdir> [extra CLI args...]
 
 Each process joins the localhost coordinator through the standard JAX env
-vars (so_tpu.parallel.distributed.init_distributed reads them), runs the
-IDENTICAL so_tpu CLI command, and process 0 writes the outputs — the
+vars (so_jax.parallel.distributed.init_distributed reads them), runs the
+IDENTICAL so_jax CLI command, and process 0 writes the outputs — the
 parent compares them byte-for-byte against the single-process CLI.
 """
 
@@ -20,7 +20,7 @@ extra = sys.argv[6:]
 os.environ["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={ldev}"
 os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ.setdefault("TF_CPP_MIN_LOG_LEVEL", "3")
-os.environ["SO_TPU_PALLAS"] = "0"
+os.environ["SO_JAX_SLAB"] = "0"
 os.environ["JAX_COORDINATOR_ADDRESS"] = f"localhost:{port}"
 os.environ["JAX_NUM_PROCESSES"] = nproc
 os.environ["JAX_PROCESS_ID"] = pid
@@ -31,7 +31,7 @@ jax.config.update("jax_platforms", "cpu")
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from so_tpu.cli import main  # noqa: E402
+from so_jax.cli import main  # noqa: E402
 
 rc = main(["-i", f"{workdir}/cat.gtp", "--tipsy", f"{workdir}/snap.bin",
            "-o", f"{workdir}/dist", "--distributed"] + extra)

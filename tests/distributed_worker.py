@@ -6,7 +6,7 @@ Launched (twice) by tests/test_distributed.py:
         <num_processes> <local_devices> <workdir>
 
 Each process forces the virtual-CPU platform, joins the localhost
-coordinator via so_tpu.parallel.distributed.init_distributed, reads ONLY
+coordinator via so_jax.parallel.distributed.init_distributed, reads ONLY
 its own segment of the snapshot (read_tipsy_segment), builds its shards of
 the global grid, runs the sharded solve + member stages over the global
 2-host mesh (all_gather/psum cross process boundaries), checkpoints its
@@ -24,7 +24,7 @@ pid, nproc, ldev = int(pid), int(nproc), int(ldev)
 os.environ["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={ldev}"
 os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ.setdefault("TF_CPP_MIN_LOG_LEVEL", "3")
-os.environ["SO_TPU_PALLAS"] = "0"
+os.environ["SO_JAX_SLAB"] = "0"
 
 import jax  # noqa: E402
 
@@ -36,15 +36,15 @@ import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from jax.sharding import PartitionSpec as P  # noqa: E402
 
-from so_tpu.engine.solver import SolveResult  # noqa: E402
-from so_tpu.checkpoint import (load_solve_sharded,  # noqa: E402
+from so_jax.engine.solver import SolveResult  # noqa: E402
+from so_jax.checkpoint import (load_solve_sharded,  # noqa: E402
                                save_solve_sharded)
-from so_tpu.io.tipsy import read_header, read_tipsy_segment  # noqa: E402
-from so_tpu.parallel.distributed import (build_sharded_grid_segment,  # noqa: E402
+from so_jax.io.tipsy import read_header, read_tipsy_segment  # noqa: E402
+from so_jax.parallel.distributed import (build_sharded_grid_segment,  # noqa: E402
                                          fetch_sharded, grid_segment,
                                          init_distributed, make_global,
                                          make_multihost_mesh)
-from so_tpu.parallel.mesh import (members_stage_sharded,  # noqa: E402
+from so_jax.parallel.mesh import (members_stage_sharded,  # noqa: E402
                                   solve_stage_sharded)
 
 assert init_distributed(f"localhost:{port}", nproc, pid) is True
@@ -104,7 +104,7 @@ for g in range(centers.shape[0]):
 # vcm from the member lists via per-segment partials merged across the
 # two processes — the ONE _VcmParticles accumulation order
 # (parallel.driver.dist_vcm_fn over engine.members.member_mv_sums)
-from so_tpu.parallel.driver import dist_vcm_fn  # noqa: E402
+from so_jax.parallel.driver import dist_vcm_fn  # noqa: E402
 
 mcounts_all = np.array([0 if m is None else m.size for m in members],
                        np.int64)
@@ -124,7 +124,7 @@ save_solve_sharded(ckpt, solve, members, centers)
 
 from jax.experimental import multihost_utils  # noqa: E402
 
-multihost_utils.sync_global_devices("so_tpu_ckpt_written")
+multihost_utils.sync_global_devices("so_jax_ckpt_written")
 
 solve2, members2, centers2 = load_solve_sharded(ckpt, nproc)
 np.testing.assert_array_equal(solve2.code, solve.code)
@@ -145,5 +145,5 @@ if pid == 0:
                                     or [np.zeros(0, np.int64)]),
              mcounts=np.array([0 if m is None else m.size for m in members]))
 
-multihost_utils.sync_global_devices("so_tpu_done")
+multihost_utils.sync_global_devices("so_jax_done")
 print(f"DISTRIBUTED_WORKER_OK pid={pid}", flush=True)

@@ -15,7 +15,7 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from so_tpu.io.tipsy import (DARK_DTYPE, GAS_DTYPE, STAR_DTYPE, TipsyHeader,
+from so_jax.io.tipsy import (DARK_DTYPE, GAS_DTYPE, STAR_DTYPE, TipsyHeader,
                              write_tipsy)
 
 

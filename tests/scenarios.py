@@ -4,7 +4,7 @@ Each scenario regenerates its snapshot/catalog inputs from a fixed seed
 (numpy Generator bit streams are stable by spec), so only the *reference
 outputs* need committing (tests/goldens/<name>/). The same definitions are
 used by make_goldens.py (runs the compiled reference, SURVEY.md section 4
-item 1) and test_golden.py (runs so_tpu and compares).
+item 1) and test_golden.py (runs so_jax and compares).
 """
 
 from __future__ import annotations

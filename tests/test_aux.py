@@ -12,12 +12,12 @@ sys.path.insert(0, HERE)
 
 from fixtures import make_clumpy_box  # noqa: E402
 
-from so_tpu.checkpoint import load_solve, save_solve  # noqa: E402
-from so_tpu.engine import SOParams, run_so  # noqa: E402
-from so_tpu.io.catalogs import GroupCatalog  # noqa: E402
-from so_tpu.io.tipsy import ParticleSet, TipsyHeader  # noqa: E402
-from so_tpu.profiling import PhaseTimer  # noqa: E402
-from so_tpu.units import unit_conversions  # noqa: E402
+from so_jax.checkpoint import load_solve, save_solve  # noqa: E402
+from so_jax.engine import SOParams, run_so  # noqa: E402
+from so_jax.io.catalogs import GroupCatalog  # noqa: E402
+from so_jax.io.tipsy import ParticleSet, TipsyHeader  # noqa: E402
+from so_jax.profiling import PhaseTimer  # noqa: E402
+from so_jax.units import unit_conversions  # noqa: E402
 
 
 def _setup():
@@ -132,8 +132,8 @@ def test_checkpoint_wrong_input_refuses_resume(tmp_path):
 
 def test_checkpoint_sharded_roundtrip(tmp_path):
     """Per-host checkpoint shards merge back to the global solve state."""
-    from so_tpu.checkpoint import load_solve_sharded, save_solve_sharded
-    from so_tpu.engine.solver import SolveResult
+    from so_jax.checkpoint import load_solve_sharded, save_solve_sharded
+    from so_jax.engine.solver import SolveResult
 
     rng = np.random.default_rng(5)
     G = 11

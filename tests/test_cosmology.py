@@ -5,12 +5,12 @@ import math
 import numpy as np
 import pytest
 
-from so_tpu.cosmology import (CSM, EPSCOSMO, csm_comove_drift_fac,
+from so_jax.cosmology import (CSM, EPSCOSMO, csm_comove_drift_fac,
                               csm_comove_kick_fac, csm_exp2hub, csm_exp2time,
                               csm_time2exp, csm_time2hub, omega_f,
                               rhovir_over_rhobar, rhovir_over_rhobar_jax,
                               threshold_in_box_units)
-from so_tpu.numerics import dromberg_o, romberg_jax
+from so_jax.numerics import dromberg_o, romberg_jax
 
 
 def test_delta_vir_omega1():
@@ -126,7 +126,7 @@ def test_time2hub():
 def test_drift_kick_closed_vs_romberg():
     """The Lambda=0 closed forms must agree with direct Romberg integration
     of the same integrands (validates both paths, cosmo.c:162-284)."""
-    from so_tpu.cosmology import _drift_int, _kick_int
+    from so_jax.cosmology import _drift_int, _kick_int
 
     for om in (0.3, 2.0):
         csm = CSM(dHubble0=1.0, dOmega0=om, bComove=True)

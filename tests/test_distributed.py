@@ -1,5 +1,5 @@
 """Real multi-process jax.distributed exercise (SURVEY.md section 5,
-"distributed communication backend"; VERDICT round 1, item 2).
+"distributed communication backend").
 
 Two local processes join a localhost coordinator, each with 4 virtual CPU
 devices, forming a global 8-device (4 halo x 2 part) mesh whose 'part'
@@ -82,12 +82,12 @@ def test_two_process_distributed_solve(problem):
     # equality with the single-process solver (same stage parameters)
     import jax.numpy as jnp
 
-    from so_tpu.engine.members import extract_members
-    from so_tpu.engine.solver import _solve_stage, unpack_stage_out
-    from so_tpu.ops import build_grid
+    from so_jax.engine.members import extract_members
+    from so_jax.engine.solver import _solve_stage, unpack_stage_out
+    from so_jax.ops import build_grid
 
     grid = build_grid(d["pos"], d["mass"], vel=d["vel"], phi=d["phi"], m=3,
-                      pallas=False)
+                      slab=False)
     packed = _solve_stage(grid, 1, 2048, 7, 8, jnp.asarray(centers),
                           jnp.asarray(radii), jnp.float32(178.0))
     ints, flts = unpack_stage_out(np.asarray(packed))
@@ -133,19 +133,19 @@ def test_two_process_distributed_solve(problem):
     # gas/dark/star iOrder boundaries, cross-process species profiles
     # (-all), and ~2-orders-of-magnitude mass spread in the merges
     pytest.param("zoom", marks=pytest.mark.slow),
-    # multi-threshold variant (--distributed --deltas, VERDICT r3 item 5):
+    # multi-threshold variant (--distributed --deltas):
     # the shared-gather multi solve across processes
     # (run_so_multi_distributed) + full per-threshold post-processing
     pytest.param("deltas", marks=pytest.mark.slow)])
 def test_distributed_cli_matches_single_process(tmp_path, variant):
-    """run_so_distributed end-to-end (VERDICT r2 item 1): a REAL 2-process
-    `so_tpu --distributed` CLI run — per-host segment reads, cross-process
+    """run_so_distributed end-to-end: a REAL 2-process
+    `so_jax --distributed` CLI run — per-host segment reads, cross-process
     sharded solve + fused members/derived, replicated conflict pass,
     partial-merged vcm/stats — must write outputs byte-identical to the
     single-process CLI (modulo the run-timestamp header line)."""
     from fixtures import make_zoom_box, write_gtp
 
-    from so_tpu.cli import main
+    from so_jax.cli import main
 
     workdir = str(tmp_path)
     rng = np.random.default_rng(61)
@@ -234,8 +234,8 @@ def test_segment_grid_matches_inprocess_sharded():
     snapshot) over an in-process mesh == build_sharded_grid exactly."""
     import jax
 
-    from so_tpu.parallel import build_sharded_grid, make_mesh
-    from so_tpu.parallel.distributed import (build_sharded_grid_segment,
+    from so_jax.parallel import build_sharded_grid, make_mesh
+    from so_jax.parallel.distributed import (build_sharded_grid_segment,
                                              grid_segment, make_multihost_mesh)
 
     rng = np.random.default_rng(5)
@@ -250,7 +250,7 @@ def test_segment_grid_matches_inprocess_sharded():
                                     vel=d["vel"], m=3)
     ref_mesh = make_mesh(4, 2)
     sg_ref = build_sharded_grid(d["pos"], d["mass"], vel=d["vel"], m=3,
-                                mesh=ref_mesh, pallas=False)
+                                mesh=ref_mesh, slab=False)
     np.testing.assert_array_equal(np.asarray(sg.pos), np.asarray(sg_ref.pos))
     np.testing.assert_array_equal(np.asarray(sg.mass),
                                   np.asarray(sg_ref.mass))
@@ -261,10 +261,10 @@ def test_segment_grid_matches_inprocess_sharded():
 
 
 def test_segment_grid_pallas_payload_matches():
-    """build_sharded_grid_segment with the Pallas payload == the
+    """build_sharded_grid_segment with the slab payload == the
     in-process builder's payload (chunk threading included)."""
-    from so_tpu.parallel import build_sharded_grid
-    from so_tpu.parallel.distributed import (build_sharded_grid_segment,
+    from so_jax.parallel import build_sharded_grid
+    from so_jax.parallel.distributed import (build_sharded_grid_segment,
                                              make_multihost_mesh)
 
     rng = np.random.default_rng(8)
@@ -274,10 +274,10 @@ def test_segment_grid_pallas_payload_matches():
     mesh = make_multihost_mesh(parts_per_host=2)
     n = d["pos"].shape[0]
     sg = build_sharded_grid_segment(mesh, 0, n, d["pos"], d["mass"],
-                                    m=2, pallas=True)
-    from so_tpu.parallel import make_mesh
+                                    m=2, slab=True)
+    from so_jax.parallel import make_mesh
     ref = build_sharded_grid(d["pos"], d["mass"], m=2,
-                             mesh=make_mesh(4, 2), pallas=True)
+                             mesh=make_mesh(4, 2), slab=True)
     assert sg.soa8t is not None and ref.soa8t is not None
     assert sg.chunk == ref.chunk
     np.testing.assert_array_equal(np.asarray(sg.soa8t),
@@ -300,8 +300,8 @@ def test_dist_conflict_fn_matches_serial_single_process():
     rank-scatter reassembly of multi-component lists."""
     from test_native import _random_case
 
-    from so_tpu.engine.conflicts import resolve_conflicts
-    from so_tpu.parallel.driver import dist_conflict_fn, seg_member_filter
+    from so_jax.engine.conflicts import resolve_conflicts
+    from so_jax.parallel.driver import dist_conflict_fn, seg_member_filter
 
     rng = np.random.default_rng(31)
     args = _random_case(rng, n_groups=50)
@@ -378,8 +378,8 @@ def test_dist_conflict_fn_multihost_threaded_fuzz():
 
     from test_native import _random_case
 
-    from so_tpu.engine.conflicts import resolve_conflicts
-    from so_tpu.parallel.driver import dist_conflict_fn, seg_member_filter
+    from so_jax.engine.conflicts import resolve_conflicts
+    from so_jax.parallel.driver import dist_conflict_fn, seg_member_filter
 
     for seed in (5, 12, 77):
         rng = np.random.default_rng(seed)
@@ -437,9 +437,9 @@ def test_int_array_text_length_exact_and_segment_write(tmp_path):
     """int_array_text_length matches the formatted byte count exactly
     (including negatives and powers of ten), and a cooperative segment
     write reproduces write_array_file byte-for-byte."""
-    from so_tpu.io.writers import (int_array_text_length, write_array_file,
+    from so_jax.io.writers import (int_array_text_length, write_array_file,
                                    write_int_array_segment)
-    from so_tpu.parallel.driver import write_array_file_segments
+    from so_jax.parallel.driver import write_array_file_segments
 
     edge = np.array([0, 1, -1, 9, 10, 99, 100, 999, 1000, 10**6 - 1, 10**6,
                      -10**6, 2**31 - 1, -2**31 + 1], np.int64)
@@ -468,7 +468,7 @@ def test_int_array_text_length_exact_and_segment_write(tmp_path):
 
 
 def test_allgather_varlen_single_process():
-    from so_tpu.parallel.distributed import allgather_varlen
+    from so_jax.parallel.distributed import allgather_varlen
 
     for arr in (np.arange(7, dtype=np.int64) * (1 << 40),
                 np.zeros(0, np.int64),
@@ -481,7 +481,7 @@ def test_allgather_varlen_single_process():
 
 @pytest.mark.distributed
 def test_distributed_checkpoint_resume(tmp_path):
-    """--checkpoint under --distributed (VERDICT r4 item 6): run 1 saves
+    """--checkpoint under --distributed: run 1 saves
     one segment shard per host after the device phase
     (checkpoint.save_solve_segment — replicated solve arrays + this
     host's SegRows member pieces); run 2, in FRESH processes, resumes
@@ -493,7 +493,7 @@ def test_distributed_checkpoint_resume(tmp_path):
 
     from fixtures import write_gtp
 
-    from so_tpu.cli import main
+    from so_jax.cli import main
 
     workdir = str(tmp_path)
     rng = np.random.default_rng(67)

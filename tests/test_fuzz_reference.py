@@ -1,4 +1,4 @@
-"""Live-reference fuzz: random boxes -> reference binary vs so_tpu.
+"""Live-reference fuzz: random boxes -> reference binary vs so_jax.
 
 Complements the fixed-seed golden suite by hunting knife-edge mismatches on
 fresh random configurations each seed. Skipped when the reference sources
@@ -34,8 +34,8 @@ def so_bin(tmp_path_factory):
     return build_reference(d)
 
 
-def _run_both(so_bin, work, ref_args, tpu_args=None, standard=False):
-    """Run the live reference and so_tpu on work/{snap.bin,cat.gtp} and
+def _run_both(so_bin, work, ref_args, our_args=None, standard=False):
+    """Run the live reference and so_jax on work/{snap.bin,cat.gtp} and
     compare every produced output file."""
     with open(f"{work}/snap.bin", "rb") as snap:
         r = subprocess.run([so_bin, "-i", f"{work}/cat.gtp", "-o",
@@ -44,10 +44,10 @@ def _run_both(so_bin, work, ref_args, tpu_args=None, standard=False):
                            cwd=work)
     assert r.returncode == 0, r.stderr[-1500:]
 
-    from so_tpu.cli import main
+    from so_jax.cli import main
     assert main(["-i", f"{work}/cat.gtp", "-o", f"{work}/got",
                  "--tipsy", f"{work}/snap.bin"]
-                + (ref_args if tpu_args is None else tpu_args)) == 0
+                + (ref_args if our_args is None else our_args)) == 0
 
     errs = []
     for ext in ("sovcirc", "sodark", "sogas", "sostar"):
@@ -100,8 +100,7 @@ def test_fuzz_random_boxes(so_bin, seed, tmp_path):
     assert not errs, "\n".join(errs[:8])
 
 
-# knife-edge-prone paths the base fuzz never varies (VERDICT round 1
-# item 6): -std (XDR read, kd2.c:330-371), -pot (recenter, kd2.c:749-761),
+# knife-edge-prone paths the base fuzz never varies: -std (XDR read, kd2.c:330-371), -pot (recenter, kd2.c:749-761),
 # -p/-c (periodic min-image, kd2.h:154-253), species splits
 # (kdParticleType ranges, kd2.c:135-141 + per-species profiles).
 FUZZ_MODES = {
@@ -114,11 +113,11 @@ FUZZ_MODES = {
                          "-ignored"]),
     "species": dict(seed=707, split=True,
                     args=["-all", "-grp", "-subsumed", "-ignored"]),
-    # --survey is a so_tpu extension: same reference run, classifier on
+    # --survey is a so_jax extension: same reference run, classifier on
     # our side — random boxes with void centers exercise the -1/-2
     # short-circuit against the live reference
     "survey": dict(seed=909, args=["-grp", "-gtp", "-subsumed", "-ignored"],
-                   tpu_extra=["--survey"]),
+                   our_extra=["--survey"]),
     # all-equal f32 masses: the uniform-mass ladder fast path against the
     # live reference — quarter/half-mass crossings land exactly on
     # particle boundaries whenever a member count divides by 4, so the
@@ -158,7 +157,7 @@ def test_fuzz_modes(so_bin, mode, seed_off, tmp_path):
     write_gtp(f"{work}/cat.gtp", centers, rgtp, masses, time=1.0,
               standard=cfg.get("standard", False))
     errs = _run_both(so_bin, work, cfg["args"],
-                     tpu_args=cfg["args"] + cfg.get("tpu_extra", []),
+                     our_args=cfg["args"] + cfg.get("our_extra", []),
                      standard=cfg.get("standard", False))
     assert not errs, "\n".join(errs[:8])
 
@@ -186,7 +185,7 @@ def test_fuzz_zoom_multispecies(so_bin, seed, tmp_path):
 def test_fuzz_pot_phi_ties(so_bin, tmp_path):
     """-pot with deliberately duplicated phi values: quantify the PARITY #4
     divergence (the reference breaks min-phi ties in kd-traversal order,
-    so_tpu in cell order). Every catalog mismatch must be explained by an
+    so_jax in cell order). Every catalog mismatch must be explained by an
     actual phi tie among that group's in-ball minimum — anything else is a
     real recentring bug. Clumps are kept far apart so a tie-divergent
     center cannot cascade into another group via the conflict pass."""
@@ -212,7 +211,7 @@ def test_fuzz_pot_phi_ties(so_bin, tmp_path):
                            stdin=snap, capture_output=True, text=True,
                            cwd=work)
     assert r.returncode == 0, r.stderr[-1500:]
-    from so_tpu.cli import main
+    from so_jax.cli import main
     assert main(["-i", f"{work}/cat.gtp", "-o", f"{work}/got",
                  "--tipsy", f"{work}/snap.bin", "-pot"]) == 0
     errs = compare_file(f"{work}/ref.sovcirc", f"{work}/got.sovcirc")

@@ -1,6 +1,6 @@
-"""Golden-output tests: so_tpu vs committed reference outputs.
+"""Golden-output tests: so_jax vs committed reference outputs.
 
-Each scenario regenerates its inputs from a fixed seed, runs the so_tpu CLI
+Each scenario regenerates its inputs from a fixed seed, runs the so_jax CLI
 end-to-end, and compares every output file against the outputs produced by
 the compiled reference (tests/goldens/, regenerated by make_goldens.py).
 Catalog files compare to float tolerance; membership/conflict arrays
@@ -8,7 +8,7 @@ compare exactly (the conflict protocol is deterministic).
 
 Known intentional divergence: with -mark, the reference's kdWriteProfile
 smashes its filename buffer (strcpy of "marked" into char[5], kd2.c:905,
-925-928) and writes the mark profile to a file literally named "d"; so_tpu
+925-928) and writes the mark profile to a file literally named "d"; so_jax
 writes the intended <base>.somark. The species scenario therefore skips
 the mark-profile file comparison.
 """
@@ -32,7 +32,7 @@ EXACT_FILES = {"sogrp", "sosub", "soign"}
 
 
 def _run_cli(workdir, args):
-    from so_tpu.cli import main
+    from so_jax.cli import main
     argv = ["-i", f"{workdir}/cat.gtp", "-o", f"{workdir}/got",
             "--tipsy", f"{workdir}/snap.bin"] + args
     assert main(argv) == 0

@@ -9,8 +9,8 @@ import pytest
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-from so_tpu.engine.conflicts import resolve_conflicts  # noqa: E402
-from so_tpu.native import get_lib, write_int_array_native  # noqa: E402
+from so_jax.engine.conflicts import resolve_conflicts  # noqa: E402
+from so_jax.native import get_lib, write_int_array_native  # noqa: E402
 
 
 pytestmark = pytest.mark.skipif(get_lib() is None,
@@ -67,14 +67,14 @@ def test_native_int_array_writer(tmp_path):
 def test_python_fallback_writer_streams_and_matches(tmp_path):
     """The no-compiler fallback writes chunked (never the whole text at
     once) and byte-matches the native writer across chunk boundaries."""
-    from so_tpu.io.writers import write_array_file
+    from so_jax.io.writers import write_array_file
 
     rng = np.random.default_rng(9)
     vals = rng.integers(-(2 ** 31), 2 ** 31, (1 << 20) + 7).astype(np.int32)
     pn = str(tmp_path / "native.txt")
     pf = str(tmp_path / "fallback.txt")
     assert write_int_array_native(pn, vals)
-    import so_tpu.native as native
+    import so_jax.native as native
     orig = native.write_int_array_native
     native.write_int_array_native = lambda *a: False   # force the fallback
     try:
@@ -85,7 +85,7 @@ def test_python_fallback_writer_streams_and_matches(tmp_path):
 
 
 def test_streaming_sogrp_write_at_scale(tmp_path):
-    """VERDICT round-1 item 9: a synthetic 1e8-value .sogrp-style write
+    """A synthetic 1e8-value .sogrp-style write
     (the per-particle group-id column of a ~464^3 run) completes at
     measured MB/s through the bounded (1 MB) native text buffer."""
     import time
@@ -127,7 +127,7 @@ def test_component_pass_matches_serial(seed):
     resolve_conflicts_components) is bit-identical to the single serial
     pass on overlapping-group fuzz cases — the exactness claim the
     multi-controller sharded conflict pass rests on."""
-    from so_tpu.engine.conflicts import resolve_conflicts_components
+    from so_jax.engine.conflicts import resolve_conflicts_components
 
     rng = np.random.default_rng(100 + seed)
     args = _random_case(rng)
@@ -141,7 +141,7 @@ def test_component_pass_host_split_merges_exactly(nhosts):
     """comp_sel round-robin split across virtual hosts + merge ==
     unrestricted pass (what parallel.driver's sharded conflict phase
     does across processes)."""
-    from so_tpu.engine.conflicts import (conflict_components,
+    from so_jax.engine.conflicts import (conflict_components,
                                          resolve_conflicts_components)
 
     rng = np.random.default_rng(77)
@@ -185,8 +185,8 @@ def test_native_stats_pass_matches_numpy():
     """so_stats_pass (one C sweep) vs the numpy compute_stats fallback:
     identical integer counters and f64 sums within summation-order
     rounding (the %g output formatting absorbs far more)."""
-    import so_tpu.native as nat
-    from so_tpu.stats import compute_stats
+    import so_jax.native as nat
+    from so_jax.stats import compute_stats
 
     rng = np.random.default_rng(9)
     n = 200_001

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from so_tpu.numerics import _indexx_nr, indexx
+from so_jax.numerics import _indexx_nr, indexx
 
 
 def test_indexx_distinct_is_argsort():
@@ -46,7 +46,7 @@ def test_indexx_native_matches_python_port():
     """so_indexx (native C) is bit-faithful to _indexx_nr (the Python NR
     port): same permutation including the quicksort's tie order, fuzzed
     over heavy/no/all-tie key sets."""
-    from so_tpu.native import indexx_native
+    from so_jax.native import indexx_native
 
     rng = np.random.default_rng(99)
     for n in (1, 2, 7, 8, 50, 333, 5000):

@@ -1,14 +1,12 @@
-"""Pallas slab-gather kernel: interpret-mode equivalence on CPU.
-
-On TPU the kernel streams Morton cell slabs with async DMA; in CI it runs
-under the Pallas interpreter on tiny shapes and must agree with the XLA
-row-gather path bit-for-bit (same candidate sets, distances, channels)."""
+"""Slab gather (ops/slab.py) on the CPU: the slotted payload gather must
+agree with the ragged row-gather path bit for bit — same candidate sets,
+distances and channels — at every chunk width and channel set."""
 
 import numpy as np
 import pytest
 
-from so_tpu.ops import build_grid
-from so_tpu.ops.gather import ragged_ball_gather, slab_gather
+from so_jax.ops import build_grid
+from so_jax.ops.gather import ragged_ball_gather, slab_gather
 
 
 @pytest.fixture(scope="module")
@@ -21,7 +19,7 @@ def small_grid():
     ptype = rng.choice([1, 2, 4], N).astype(np.int32)
     mark = rng.uniform(size=N) < 0.3
     grid = build_grid(pos, mass, vel=vel, ptype=ptype, mark=mark, m=2,
-                      pallas=True)
+                      slab=True)
     return grid, rng
 
 
@@ -48,9 +46,9 @@ def test_slab_matches_xla(small_grid):
                | (np.asarray(grid.mark_a()).astype(np.int32) << 4))
     for b in range(B):
         n = int(ref.n_in[b])
-        # 1-ulp FMA/fusion differences between the two lowerings are allowed
-        np.testing.assert_allclose(np.asarray(got.d2[b, :n]),
-                                   np.asarray(ref.d2[b, :n]), rtol=1e-6)
+        # both paths round each square on its own (slab.dist2): equal bits
+        np.testing.assert_array_equal(np.asarray(got.d2[b, :n]),
+                                      np.asarray(ref.d2[b, :n]))
         gi = np.asarray(got.channels[3][b, :n])
         ri = np.asarray(ref.idx[b, :n])
         np.testing.assert_array_equal(np.sort(gi), np.sort(ri))
@@ -78,7 +76,7 @@ def test_slab_recenter_matches_xla():
     argmin) == the XLA ragged-gather recenter stage."""
     import jax.numpy as jnp
 
-    from so_tpu.engine.recenter import recenter_most_bound
+    from so_jax.engine.recenter import recenter_most_bound
 
     rng = np.random.default_rng(11)
     N = 900
@@ -86,8 +84,8 @@ def test_slab_recenter_matches_xla():
     pos[:300] = pos[:300] * 0.08 + np.array([0.1, 0.1, 0.1], np.float32)
     mass = rng.uniform(0.5, 1.5, N).astype(np.float32)
     phi = rng.uniform(-3.0, -0.1, N).astype(np.float32)  # distinct: no ties
-    g_slab = build_grid(pos, mass, phi=phi, m=2, pallas=True)
-    g_xla = build_grid(pos, mass, phi=phi, m=2, pallas=False)
+    g_slab = build_grid(pos, mass, phi=phi, m=2, slab=True)
+    g_xla = build_grid(pos, mass, phi=phi, m=2, slab=False)
     centers = np.array([[0.1, 0.1, 0.1], [0.12, 0.09, 0.1],
                         [-0.4, -0.4, -0.4],    # likely-empty ball
                         [0.3, -0.2, 0.0]], np.float32)
@@ -102,7 +100,7 @@ def test_dedup_payload_roundtrip_bit_exact():
     deduplicated grid returns bit-identical arrays to a duplicate-layout
     build of the same inputs, and the giant-K fallback grid
     (solver._stage_grid) materializes the same bits."""
-    from so_tpu.engine.solver import K_SLAB_MAX, _FB_ALL, _stage_grid
+    from so_jax.engine.solver import K_SLAB_MAX, _FB_ALL, _stage_grid
 
     rng = np.random.default_rng(21)
     N = 500
@@ -112,8 +110,8 @@ def test_dedup_payload_roundtrip_bit_exact():
     ptype = rng.choice([1, 2, 4], N).astype(np.int32)
     mark = rng.uniform(size=N) < 0.3
     kw = dict(vel=vel, ptype=ptype, mark=mark, m=2)
-    g_d = build_grid(pos, mass, pallas=True, **kw)
-    g_x = build_grid(pos, mass, pallas=False, **kw)
+    g_d = build_grid(pos, mass, slab=True, **kw)
+    g_x = build_grid(pos, mass, slab=False, **kw)
     assert g_d.pos is None and g_d.soa8t is not None
     assert g_d.phi is None           # no potentials provided -> dropped
     assert g_d.n == g_x.n == N
@@ -147,29 +145,27 @@ def test_dedup_payload_roundtrip_bit_exact():
     assert fb3.pos is cache["pos"]
 
     # phi provided -> carried through dedup for the -pot paths
-    g_phi = build_grid(pos, mass, phi=mass * 2, pallas=True, **kw)
+    g_phi = build_grid(pos, mass, phi=mass * 2, slab=True, **kw)
     assert g_phi.phi is not None
 
 
 def test_dedup_env_escape_hatch(monkeypatch):
-    monkeypatch.setenv("SO_TPU_DEDUP", "0")
+    monkeypatch.setenv("SO_JAX_DEDUP", "0")
     rng = np.random.default_rng(22)
     pos = rng.uniform(-0.5, 0.5, (200, 3)).astype(np.float32)
     mass = rng.uniform(0.5, 1.5, 200).astype(np.float32)
-    g = build_grid(pos, mass, m=2, pallas=True)
+    g = build_grid(pos, mass, m=2, slab=True)
     assert g.soa8t is not None and g.pos is not None and g.mass is not None
 
 
 def test_uniform_mass_slab_paths_match_general(tmp_path):
-    """The chans=() slab-kernel configs (uniform-mass solve/classify/fused)
-    must produce bit-identical results to the general (d2, mass) slab
-    path — run through the Pallas interpreter, the only coverage of the
-    nch=1 kernel instantiation off-hardware."""
+    """The chans=() slab configs (uniform-mass solve/classify/fused) must
+    produce bit-identical results to the general (d2, mass) slab path."""
     import dataclasses
 
-    from so_tpu.engine.fused import members_and_derived
-    from so_tpu.engine.solver import solve_rvir
-    from so_tpu.io.tipsy import DARK, GAS
+    from so_jax.engine.fused import members_and_derived
+    from so_jax.engine.solver import solve_rvir
+    from so_jax.io.tipsy import DARK, GAS
 
     rng = np.random.default_rng(31)
     n_c, n_b = 1800, 2600
@@ -180,7 +176,7 @@ def test_uniform_mass_slab_paths_match_general(tmp_path):
     mass = np.full(n, np.float32(1.0 / n))
     vel = (rng.normal(size=(n, 3)) * 0.01).astype(np.float32)
     ptype = np.where(np.arange(n) % 3 == 0, GAS, DARK).astype(np.int32)
-    g_u = build_grid(pos, mass, vel=vel, ptype=ptype, m=2, pallas=True)
+    g_u = build_grid(pos, mass, vel=vel, ptype=ptype, m=2, slab=True)
     assert g_u.uniform_mass is not None and g_u.soa8t is not None
     g_g = dataclasses.replace(g_u, uniform_mass=None)
 
@@ -211,36 +207,101 @@ def test_uniform_mass_slab_paths_match_general(tmp_path):
     np.testing.assert_array_equal(res["u"][2].rmass, res["g"][2].rmass)
 
 
-def test_hpp_window_scaling_bit_identical(small_grid, monkeypatch):
-    """Wide/giant output windows halve the per-program halo count (hpp)
-    instead of falling off the slab path; shrinking the proven window
-    bound to force hpp=1 must not change a single output bit (only the
-    program grid layout moves)."""
-    import jax
+_CHANS = {"d2": (), "mass": ("mass",),
+          "all": ("mass", "mvx", "mvy", "mvz", "meta", "ilo", "ihi")}
 
-    from so_tpu.ops import pallas_gather as pg
 
-    grid, rng = small_grid
-    B, K, S = 6, 4096, 5
+def _slab_case(chunk):
+    """A clumpy grid with the given payload chunk, and a batch of balls
+    with their merged runs at level 1."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from so_jax.ops.gather import cell_ranges
+    from so_jax.ops.slab import pack_soa8t
+
+    rng = np.random.default_rng(40 + chunk)
+    N = 2400
+    pos = rng.uniform(-0.5, 0.5, (N, 3)).astype(np.float32)
+    pos[:800] = pos[:800] * 0.1 + np.float32(0.2)
+    mass = rng.uniform(0.5, 1.5, N).astype(np.float32)
+    vel = rng.normal(size=(N, 3)).astype(np.float32)
+    ptype = rng.choice([1, 2, 4], N).astype(np.int32)
+    mark = rng.uniform(size=N) < 0.3
+    g = build_grid(pos, mass, vel=vel, ptype=ptype, mark=mark, m=3,
+                   slab=False)
+    g = dataclasses.replace(g, chunk=chunk, soa8t=pack_soa8t(
+        g.pos, g.mass, g.vel, g.ptype, g.mark, chunk=chunk))
+    B, S = 6, 5
     centers = rng.uniform(-0.5, 0.5, (B, 3)).astype(np.float32)
-    radii = rng.uniform(0.05, 0.3, B).astype(np.float32)
+    centers[0] = 0.2                       # inside the clump
+    centers[1] = (0.49, -0.49, 0.0)        # across the periodic boundary
+    radii = rng.uniform(0.05, 0.25, B).astype(np.float32)
+    centers, radii = jnp.asarray(centers), jnp.asarray(radii)
     r2 = radii * radii
+    runs = cell_ranges(g, 1, centers, radii, r2, S, align=chunk)
+    return g, centers, radii, r2, runs
 
-    chans = ("mass", "mv", "meta", "idx")
-    base = slab_gather(grid, 1, centers, radii, r2, K, S, channels=chans)
-    nch = 8  # d2 + mass + 3 mv + meta + 2 idx
-    kp = -(-K // grid.chunk) * grid.chunk + grid.chunk
-    # bound small enough that only hpp=1 fits this window
-    monkeypatch.setattr(pg, "W_MAX", nch * kp * 4)
-    jax.clear_caches()   # drop the cached trace (W_MAX is read at trace)
-    try:
-        forced = slab_gather(grid, 1, centers, radii, r2, K, S,
-                             channels=chans)
-    finally:
-        monkeypatch.undo()
-        jax.clear_caches()
-    np.testing.assert_array_equal(np.asarray(base.d2), np.asarray(forced.d2))
-    np.testing.assert_array_equal(np.asarray(base.n_in),
-                                  np.asarray(forced.n_in))
-    for a, b in zip(base.channels, forced.channels):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+@pytest.mark.parametrize("chans", sorted(_CHANS))
+@pytest.mark.parametrize("chunk", [128, 256])
+def test_slab_slots_match_ragged(chunk, chans):
+    """slab_slots against the independent ragged row-gather: per halo the
+    same in-ball count, the same source rows, bit-equal d2, and channels
+    equal to the particle arrays at those rows (m*v one f32 product);
+    empty and out-of-ball slots carry d2=+inf and zero channels."""
+    from so_jax.ops.slab import decode_idx, slab_slots
+
+    g, centers, radii, r2, (st, cnt, q, total) = _slab_case(chunk)
+    K, S = 4096, 5
+    assert int(np.asarray(total).max()) <= K
+    ch = _CHANS[chans]
+    out = np.asarray(slab_slots(g.soa8t, st, cnt, q, centers, g.period, r2,
+                                K, chans=ch, CHUNK=chunk))
+    assert out.shape == (centers.shape[0], 1 + len(ch), K)
+    ref = ragged_ball_gather(g, 1, centers, radii, r2, K, S, sort=True)
+    d2 = out[:, 0]
+    hit = np.isfinite(d2)
+    np.testing.assert_array_equal(hit.sum(axis=1), np.asarray(ref.n_in))
+    assert (out[:, 1:][~np.broadcast_to(hit[:, None], out[:, 1:].shape)]
+            == 0).all()
+    full = ("mass", "mvx", "mvy", "mvz", "meta", "ilo", "ihi")
+    want_ch = np.asarray(slab_slots(g.soa8t, st, cnt, q, centers, g.period,
+                                    r2, K, chans=full, CHUNK=chunk))
+    rows_all = np.asarray(decode_idx(want_ch[:, 6], want_ch[:, 7]))
+    mass = np.asarray(g.mass)
+    mv = np.asarray(g.vel) * mass[:, None]
+    meta = np.asarray(g.ptype) | (np.asarray(g.mark).astype(np.int32) << 4)
+    for b in range(centers.shape[0]):
+        n = int(ref.n_in[b])
+        rows = rows_all[b][hit[b]]
+        np.testing.assert_array_equal(np.sort(rows),
+                                      np.sort(np.asarray(ref.idx[b, :n])))
+        np.testing.assert_array_equal(np.sort(d2[b][hit[b]]),
+                                      np.asarray(ref.d2[b, :n]))
+        got = {name: out[b, 1 + i][hit[b]] for i, name in enumerate(ch)}
+        for name, v in got.items():
+            if name == "mass":
+                np.testing.assert_array_equal(v, mass[rows])
+            elif name in ("mvx", "mvy", "mvz"):
+                np.testing.assert_array_equal(v, mv[rows, "xyz".index(name[2])])
+            elif name == "meta":
+                np.testing.assert_array_equal(v.astype(np.int32), meta[rows])
+
+
+def test_dist2_rounds_each_square():
+    """dist2 equals the separately rounded numpy sum on every element: no
+    fused multiply-add contraction, whatever the backend does with a
+    plain x*x + y*y + z*z."""
+    import jax
+    import jax.numpy as jnp
+
+    from so_jax.ops.slab import dist2
+
+    rng = np.random.default_rng(5)
+    x = rng.uniform(-0.3, 0.3, (3, 1 << 16)).astype(np.float32)
+    want = (x[0] * x[0] + x[1] * x[1]) + x[2] * x[2]
+    zero = jnp.asarray(np.zeros(1, np.int32))
+    got = jax.jit(lambda a, z: dist2(a[0], a[1], a[2], z[0]))(x, zero)
+    np.testing.assert_array_equal(np.asarray(got), want)

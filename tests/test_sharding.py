@@ -13,9 +13,9 @@ sys.path.insert(0, HERE)
 
 from fixtures import make_clumpy_box  # noqa: E402
 
-from so_tpu.engine.solver import solve_rvir  # noqa: E402
-from so_tpu.ops import build_grid  # noqa: E402
-from so_tpu.parallel import (build_sharded_grid, make_mesh,  # noqa: E402
+from so_jax.engine.solver import solve_rvir  # noqa: E402
+from so_jax.ops import build_grid  # noqa: E402
+from so_jax.parallel import (build_sharded_grid, make_mesh,  # noqa: E402
                              solve_rvir_sharded)
 
 
@@ -85,10 +85,10 @@ def test_sharded_derived_matches_single(data):
     """Sharded kdVcirc/profiles (all_gather merge) == single-device."""
     import jax.numpy as jnp
 
-    from so_tpu.engine.derived import _derived_stage
-    from so_tpu.io.tipsy import DARK
-    from so_tpu.parallel import build_sharded_grid, make_mesh
-    from so_tpu.parallel.mesh import derived_stage_sharded
+    from so_jax.engine.derived import _derived_stage
+    from so_jax.io.tipsy import DARK
+    from so_jax.parallel import build_sharded_grid, make_mesh
+    from so_jax.parallel.mesh import derived_stage_sharded
 
     d, centers, rgtp = data
     thr = 178.0
@@ -135,11 +135,11 @@ def test_sharded_members_match_single(data):
     """Sharded member extraction (global-index translation + all_gather
     merge) == single-device: identical member sets, and ONE vcm
     accumulation order everywhere — plain, fused, and sharded are
-    BIT-identical (vcm_from_members sequential-f64, VERDICT r3 item 7),
+    BIT-identical (vcm_from_members sequential-f64),
     both with an explicit host_mv and with each path's own derivation."""
-    from so_tpu.engine.fused import members_and_derived
-    from so_tpu.engine.members import extract_members
-    from so_tpu.parallel.mesh import (extract_members_sharded,
+    from so_jax.engine.fused import members_and_derived
+    from so_jax.engine.members import extract_members
+    from so_jax.parallel.mesh import (extract_members_sharded,
                                       host_mv_from_sharded)
 
     d, centers, rgtp = data
@@ -187,7 +187,7 @@ def test_sharded_members_match_single(data):
 
 def test_host_segments_partition():
     """host_segment slices are contiguous, balanced, and covering."""
-    from so_tpu.parallel.distributed import host_segment, init_distributed
+    from so_jax.parallel.distributed import host_segment, init_distributed
 
     for n, hosts in [(17, 4), (16, 4), (3, 8), (0, 2), (1024, 1)]:
         segs = [host_segment(n, hosts, h) for h in range(hosts)]
@@ -204,9 +204,8 @@ def test_host_segments_partition():
 
 
 def test_sharded_solve_pallas_payload():
-    """The Pallas slab kernel under shard_map (interpret mode on CPU) must
-    agree with the XLA local-gather sharded path. Deliberately tiny: the
-    interpreter executes the kernel's chunk loop per-op."""
+    """The slab gather under shard_map must agree with the ragged
+    local-gather sharded path."""
     rng = np.random.default_rng(41)
     clump = dict(center=(0.05, 0.0, 0.0), n=700, rmax=0.05, mass_total=0.3)
     d = make_clumpy_box(rng, n_background=500, clumps=[clump])
@@ -215,9 +214,9 @@ def test_sharded_solve_pallas_payload():
     thr = 178.0
     mesh = make_mesh(1, 2, devices=__import__("jax").devices()[:2])
     sg_x = build_sharded_grid(d["pos"], d["mass"], vel=d["vel"], m=2,
-                              mesh=mesh, pallas=False)
+                              mesh=mesh, slab=False)
     sg_p = build_sharded_grid(d["pos"], d["mass"], vel=d["vel"], m=2,
-                              mesh=mesh, pallas=True)
+                              mesh=mesh, slab=True)
     assert sg_p.soa8t is not None
     a = solve_rvir_sharded(mesh, sg_x, centers, rgtp, thr)
     b = solve_rvir_sharded(mesh, sg_p, centers, rgtp, thr)
@@ -282,8 +281,8 @@ def test_sharded_escalation_overflow_and_m3(data):
 def test_sharded_multi_threshold_matches_single(data):
     """Multi-threshold solve on a (2,4) mesh == single-device engine.multi
     for every threshold."""
-    from so_tpu.engine.multi import solve_rvir_multi
-    from so_tpu.parallel.mesh import solve_rvir_multi_sharded
+    from so_jax.engine.multi import solve_rvir_multi
+    from so_jax.parallel.mesh import solve_rvir_multi_sharded
 
     d, centers, rgtp = data
     thresholds = [178.0, 500.0, 80.0]
@@ -306,7 +305,7 @@ def test_sharded_survey_matches_single():
     classify_stage_sharded (per-shard kk-prefix merge over 'part') — must
     equal both the single-device survey solve and the plain solve on a
     catalog mixing -1, -2, and successful halos."""
-    from so_tpu.parallel.mesh import solve_rvir_multi_sharded
+    from so_jax.parallel.mesh import solve_rvir_multi_sharded
 
     rng = np.random.default_rng(55)
     d = make_clumpy_box(rng, n_background=6000, clumps=[
@@ -334,7 +333,7 @@ def test_sharded_survey_matches_single():
 
     # multi-threshold: the sharded classifier shares one gather across
     # thresholds (T-wide -2 bitmask), same contract as engine.multi
-    from so_tpu.engine.multi import solve_rvir_multi
+    from so_jax.engine.multi import solve_rvir_multi
     thresholds = [178.0, 1e-4]
     want_m = solve_rvir_multi(grid, centers, rgtp, thresholds,
                               survey=False)
@@ -356,7 +355,7 @@ def test_cli_mesh_flag_matches_default(tmp_path):
     _sys.path.insert(0, HERE2)
     from fixtures import write_gtp, write_snapshot
 
-    from so_tpu.cli import main
+    from so_jax.cli import main
 
     rng = np.random.default_rng(29)
     clumps = [dict(center=(0.1, 0.0, -0.1), n=900, rmax=0.05,
@@ -396,7 +395,7 @@ def test_cli_mesh_deltas_matches_default(tmp_path):
     _sys.path.insert(0, HERE2)
     from fixtures import write_gtp, write_snapshot
 
-    from so_tpu.cli import main
+    from so_jax.cli import main
 
     rng = np.random.default_rng(41)
     clumps = [dict(center=(0.1, 0.0, -0.1), n=900, rmax=0.05,
@@ -428,8 +427,8 @@ def test_cli_mesh_deltas_matches_default(tmp_path):
 def test_sharded_recenter_matches_single(data):
     """Sharded -pot recentring (all_gather merge + argmin) == the
     single-device stage whenever phi values are distinct."""
-    from so_tpu.engine.recenter import recenter_most_bound
-    from so_tpu.parallel.mesh import recenter_most_bound_sharded
+    from so_jax.engine.recenter import recenter_most_bound
+    from so_jax.parallel.mesh import recenter_most_bound_sharded
 
     d, centers, rgtp = data
     rng = np.random.default_rng(3)
@@ -448,8 +447,8 @@ def test_uniform_mass_sharded_matches_single(data):
     all_gather merge, 1-op sort, ladder cum) must bit-match the
     single-device solve — plain solve, --survey classify, and
     multi-threshold."""
-    from so_tpu.engine.multi import solve_rvir_multi
-    from so_tpu.parallel.mesh import solve_rvir_multi_sharded
+    from so_jax.engine.multi import solve_rvir_multi
+    from so_jax.parallel.mesh import solve_rvir_multi_sharded
 
     d, centers, rgtp = data
     n = d["pos"].shape[0]
@@ -483,9 +482,9 @@ def test_uniform_mass_sharded_fused_members_matches(data):
     profiles) must match the single-device fused pass bit-for-bit."""
     import dataclasses
 
-    from so_tpu.engine.fused import members_and_derived
-    from so_tpu.io.tipsy import DARK
-    from so_tpu.parallel.mesh import sharded_fused_members_fn
+    from so_jax.engine.fused import members_and_derived
+    from so_jax.io.tipsy import DARK
+    from so_jax.parallel.mesh import sharded_fused_members_fn
 
     d, centers, rgtp = data
     n = d["pos"].shape[0]

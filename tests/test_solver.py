@@ -12,8 +12,8 @@ sys.path.insert(0, HERE)
 from fixtures import make_clumpy_box  # noqa: E402
 from reference_oracle import oracle_rvir  # noqa: E402
 
-from so_tpu.engine.solver import ladder_radius, rvir_ladder, solve_rvir  # noqa: E402
-from so_tpu.ops import build_grid  # noqa: E402
+from so_jax.engine.solver import ladder_radius, rvir_ladder, solve_rvir  # noqa: E402
+from so_jax.ops import build_grid  # noqa: E402
 
 
 def test_ladder_float32_semantics():
@@ -91,7 +91,7 @@ def test_error_codes():
 
 def test_multi_threshold_matches_independent_runs():
     """solve_rvir_multi must equal per-threshold solve_rvir exactly."""
-    from so_tpu.engine.multi import solve_rvir_multi
+    from so_jax.engine.multi import solve_rvir_multi
 
     rng = np.random.default_rng(31)
     clumps = [
@@ -126,7 +126,7 @@ def test_fused_round_matches_classic():
     ]
     data = make_clumpy_box(rng, n_background=1200, clumps=clumps)
     grid = build_grid(data["pos"], data["mass"], vel=data["vel"], m=2,
-                      pallas=True)
+                      slab=True)
     centers = np.array([
         [0.1, 0.0, 0.0],        # big clump: overflows a tiny k0_cap
         [-0.3, 0.2, 0.1],
@@ -158,7 +158,7 @@ def test_fused_spill_falls_back_to_classic():
     ]
     data = make_clumpy_box(rng, n_background=1000, clumps=clumps)
     grid = build_grid(data["pos"], data["mass"], vel=data["vel"], m=2,
-                      pallas=True)
+                      slab=True)
     centers = np.array([c["center"] for c in clumps], np.float32)
     rgtp = np.full(3, 0.05, np.float32)
     thr = 178.0
@@ -183,8 +183,8 @@ def test_survey_classifier_matches_full_solve():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from fixtures import make_clumpy_box
 
-    from so_tpu.engine.solver import solve_rvir
-    from so_tpu.ops import build_grid
+    from so_jax.engine.solver import solve_rvir
+    from so_jax.ops import build_grid
 
     rng = np.random.default_rng(55)
     d = make_clumpy_box(rng, n_background=6000, clumps=[
@@ -218,7 +218,7 @@ def _survey_problem(seed=55):
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from fixtures import make_clumpy_box
 
-    from so_tpu.ops import build_grid
+    from so_jax.ops import build_grid
 
     rng = np.random.default_rng(seed)
     d = make_clumpy_box(rng, n_background=6000, clumps=[
@@ -243,15 +243,15 @@ def test_level_bucketing_matches_single_level(monkeypatch):
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from fixtures import make_clumpy_box
 
-    from so_tpu.engine import solver
-    from so_tpu.ops import build_grid
+    from so_jax.engine import solver
+    from so_jax.ops import build_grid
 
     rng = np.random.default_rng(77)
     d = make_clumpy_box(rng, n_background=6000, clumps=[
         dict(center=(0.2, 0.2, 0.2), n=2000, rmax=0.06, mass_total=0.25)])
     # the cost model's run-slack term needs the slab payload (chunk > 0);
     # on CPU the kernel runs in interpret mode
-    grid = build_grid(d["pos"], d["mass"], m=3, pallas=True)
+    grid = build_grid(d["pos"], d["mass"], m=3, slab=True)
     centers = np.array([
         (0.2, 0.2, 0.2), (-0.4, -0.4, -0.4), (-0.35, 0.4, -0.4),
         (0.21, 0.19, 0.2), (0.4, -0.4, 0.4),
@@ -281,7 +281,7 @@ def test_span_subgroups_partition_and_coverage():
     only prunes cells the ball cannot intersect), (c) never exceed the
     group span, and (d) collapse to one group when splitting saves no
     estimated device time."""
-    from so_tpu.engine import solver
+    from so_jax.engine import solver
 
     class Proxy:
         m = 6
@@ -322,27 +322,27 @@ def test_span_subgroups_partition_and_coverage():
 def test_span_split_solve_bit_identical(monkeypatch):
     """Span sub-bucketing is a pure perf optimization: forcing every
     sub-bucket to split (zero min-save) must keep solve_rvir outputs
-    bit-identical to the unsplit dispatch (SO_TPU_SPAN_SPLIT=0)."""
+    bit-identical to the unsplit dispatch (SO_JAX_SPAN_SPLIT=0)."""
     import os
     import sys
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from fixtures import make_clumpy_box
 
-    from so_tpu.engine import solver
-    from so_tpu.ops import build_grid
+    from so_jax.engine import solver
+    from so_jax.ops import build_grid
 
     rng = np.random.default_rng(99)
     d = make_clumpy_box(rng, n_background=8000, clumps=[
         dict(center=(0.2, 0.2, 0.2), n=2000, rmax=0.06, mass_total=0.25),
         dict(center=(-0.3, -0.3, 0.1), n=1500, rmax=0.03, mass_total=0.1)])
-    grid = build_grid(d["pos"], d["mass"], m=4, pallas=True)
+    grid = build_grid(d["pos"], d["mass"], m=4, slab=True)
     rng2 = np.random.default_rng(5)
     centers = rng2.uniform(-0.5, 0.5, (96, 3)).astype(np.float32)
     rgtp = rng2.choice([0.003, 0.05, 0.15, 0.3], 96).astype(np.float32)
-    monkeypatch.setenv("SO_TPU_SPAN_SPLIT", "0")
+    monkeypatch.setenv("SO_JAX_SPAN_SPLIT", "0")
     want = solver.solve_rvir(grid, centers, rgtp, 200.0, survey=False)
-    monkeypatch.delenv("SO_TPU_SPAN_SPLIT")
+    monkeypatch.delenv("SO_JAX_SPAN_SPLIT")
     monkeypatch.setattr(solver, "BUCKET_MIN", 1)
     monkeypatch.setattr(solver, "_SPAN_MIN_SAVE_S", 0.0)
     # the tiny catalog must genuinely split somewhere: check directly
@@ -360,11 +360,11 @@ def test_span_split_solve_bit_identical(monkeypatch):
 
 def test_bucket_levels_dense_box_model():
     """The level cost model on a synthetic dense-box proxy (34M particles,
-    m=6, chunk=128 — the 1e6-halo box of docs/RESULTS.md): with the
+    m=6, chunk=128 — the 1e6-halo survey box): with the
     measured-density correction, small halos must escape the legacy
     level's trapped footprint to a finer level while staying put when the
     model says the legacy level fits (lam=1)."""
-    from so_tpu.engine.solver import _bucket_levels
+    from so_jax.engine.solver import _bucket_levels
 
     class Proxy:
         m = 7                     # choose_m(34e6)
@@ -391,7 +391,7 @@ def test_survey_auto_gate_matches_forced(monkeypatch):
     results whether the gate opens (survey-heavy catalog) or stays closed
     (well-posed catalog). Constants are patched so the tiny catalog
     exercises the gate."""
-    from so_tpu.engine import solver
+    from so_jax.engine import solver
 
     grid, centers, rgtp = _survey_problem()
     monkeypatch.setattr(solver, "SURVEY_MIN_G", 4)
@@ -412,8 +412,8 @@ def test_survey_auto_gate_matches_forced(monkeypatch):
 def test_survey_multi_threshold_matches_full(monkeypatch):
     """solve_rvir_multi with the survey classifier (forced and auto) must
     equal the plain multi solve per threshold."""
-    from so_tpu.engine import solver
-    from so_tpu.engine.multi import solve_rvir_multi
+    from so_jax.engine import solver
+    from so_jax.engine.multi import solve_rvir_multi
 
     grid, centers, rgtp = _survey_problem()
     thresholds = [178.0, 1e-4, 500.0]
@@ -437,8 +437,8 @@ def test_mass_ladder_matches_serial_and_seqsum():
     serial sum and the exactness contract rides on this."""
     import jax.numpy as jnp
 
-    from so_tpu.engine.solver import _mass_ladder
-    from so_tpu.ops.seqsum import seq_cumsum
+    from so_jax.engine.solver import _mass_ladder
+    from so_jax.ops.seqsum import seq_cumsum
 
     for m, K in ((3.3386752e-06, 1024), (1.0 / 2097152.0, 4096),
                  (0.0173, 257)):
@@ -460,8 +460,8 @@ def test_uniform_mass_solve_matches_general_path():
     (d2, mass) path — classic, fused, survey, and multi-threshold."""
     import dataclasses
 
-    from so_tpu.engine import solver
-    from so_tpu.engine.multi import solve_rvir_multi
+    from so_jax.engine import solver
+    from so_jax.engine.multi import solve_rvir_multi
 
     rng = np.random.default_rng(77)
     clumps = [
@@ -502,8 +502,8 @@ def test_uniform_mass_fused_derived_matches_general_path():
     sort) must bit-match the general (d2, mass) path."""
     import dataclasses
 
-    from so_tpu.engine.fused import members_and_derived
-    from so_tpu.io.tipsy import DARK, GAS, STAR
+    from so_jax.engine.fused import members_and_derived
+    from so_jax.io.tipsy import DARK, GAS, STAR
 
     rng = np.random.default_rng(78)
     clumps = [
@@ -553,7 +553,7 @@ def test_uniform_cum_giant_fallback_matches_ladder(monkeypatch):
     seq-scanned) must produce the same bits as the ladder broadcast."""
     import jax.numpy as jnp
 
-    from so_tpu.engine import solver
+    from so_jax.engine import solver
 
     m, K, B = 3.3386752e-06, 512, 5
     n_in = jnp.asarray(np.array([0, 1, 37, 256, 512], np.int32))
@@ -567,65 +567,35 @@ def test_uniform_cum_giant_fallback_matches_ladder(monkeypatch):
 
 
 def test_channel_aware_slab_ceiling():
-    """k_slab_max is CHANNEL-AWARE: pallas_slab_gather scales halos per
-    program down to hpp=1, so the ceiling is the largest power-of-two K
-    whose ONE-halo window nch*(K+CHUNK)*4 B fits the device's proven
-    bound w_max(). On v5e that is nch=1 -> 2^20, nch=2 -> 2^19,
-    nch=3/4 -> 2^18, nch 5-8 -> 2^17; it never scales above 2^20. On a
-    smaller probed budget every ceiling scales down with it. _stage_grid
-    keeps the payload up to the caller's ceiling and strips it above;
-    the batch heuristics classify slab/fallback tiers by the same
-    ceiling."""
+    """k_slab_max is CHANNEL-AWARE: the per-stage slab ceiling falls as
+    the stage's output rows grow — nch=1 -> 2^20, nch=2 -> 2^19,
+    nch=3/4 -> 2^18, nch 5-8 -> 2^17 — and widths outside 1..8 are
+    refused. _stage_grid keeps the payload up to the caller's ceiling and
+    strips it above; the batch heuristics classify slab/fallback tiers by
+    the same ceiling."""
     import pytest
 
-    from so_tpu.engine import solver
-    from so_tpu.ops import build_grid, pallas_gather
+    from so_jax.engine import solver
+    from so_jax.ops import build_grid
 
-    # CPU backend (conftest): w_max() resolves to the conservative
-    # default = the v5e-proven window
-    assert pallas_gather.w_max() == pallas_gather.W_MAX_DEFAULT
-    CHUNK = pallas_gather.CHUNK
     expect = {1: 1 << 20, 2: 1 << 19, 3: 1 << 18, 4: 1 << 18,
               5: 1 << 17, 6: 1 << 17, 7: 1 << 17, 8: 1 << 17}
     for nch, want in expect.items():
         assert solver.k_slab_max(nch) == want, nch
-        # the one-halo window fits the proven byte bound...
-        assert nch * (want + CHUNK) * 4 <= pallas_gather.w_max()
-        # ...and doubling K would not (unless already at the 2^20 cap)
-        if want < 1 << 20:
-            assert nch * (2 * want + CHUNK) * 4 > pallas_gather.w_max()
-    with pytest.raises(AssertionError):
-        solver.k_slab_max(9)
+    # monotone: a wider stage never gets a larger ceiling
+    ks = [solver.k_slab_max(n) for n in range(1, 9)]
+    assert ks == sorted(ks, reverse=True)
+    for bad in (0, 9):
+        with pytest.raises(ValueError):
+            solver.k_slab_max(bad)
     assert solver.K_SLAB_MAX == 1 << 15      # legacy default untouched
-
-    # the halving math: at every (nch, K = k_slab_max(nch)) the kernel
-    # finds an hpp >= 1 whose output window fits the proven bound
-    for nch, K in expect.items():
-        Kp = ((K + CHUNK) // CHUNK) * CHUNK
-        hpp = pallas_gather.HPP
-        while hpp > 1 and hpp * nch * Kp * 4 > pallas_gather.w_max():
-            hpp //= 2
-        assert hpp * nch * Kp * 4 <= pallas_gather.w_max(), (nch, K, hpp)
-
-    # a smaller device budget scales every ceiling down; a huge budget
-    # never raises any ceiling above 2^20 (no untested extrapolation)
-    saved = pallas_gather.W_MAX
-    try:
-        pallas_gather.W_MAX = 8 * ((1 << 15) + CHUNK) * 4
-        assert solver.k_slab_max(8) == 1 << 15
-        assert solver.k_slab_max(1) == 1 << 18
-        pallas_gather.W_MAX = 1 << 40                        # huge
-        assert solver.k_slab_max(1) == 1 << 20
-        assert solver.k_slab_max(8) == 1 << 20
-    finally:
-        pallas_gather.W_MAX = saved
 
     rng = np.random.default_rng(7)
     N = 400
     pos = rng.uniform(-0.5, 0.5, (N, 3)).astype(np.float32)
-    g_u = build_grid(pos, np.full(N, 2e-6, np.float32), pallas=True)
+    g_u = build_grid(pos, np.full(N, 2e-6, np.float32), slab=True)
     g_g = build_grid(pos, rng.uniform(1, 2, N).astype(np.float32),
-                     pallas=True)
+                     slab=True)
     assert g_u.uniform_mass is not None and g_g.uniform_mass is None
     # solve/classify gather d2 only on uniform-mass grids (1 row),
     # d2+mass otherwise (2 rows)
@@ -657,7 +627,7 @@ def test_channel_aware_slab_ceiling():
     # _dispatch_chunks (the unified solve_rvir chunking) must apply the
     # same giant-K budget cut as _chunk_for: XLA-fallback tiers hold many
     # live (B, K) temporaries, and dispatching slot_budget//K halos there
-    # OOM'd a 16 GB chip at 512^3 (/tmp/scale512.log 2026-08-20)
+    # ran out of device memory at 512^3
     sel = np.arange(4096)
     K_giant = 1 << 18
     giant_chunks = [p.size for _, p in
@@ -679,10 +649,10 @@ def test_pipelined_dispatch_matches_depth1(monkeypatch):
     """The depth-2 dispatch pipeline (dispatch chunk i+1 before applying
     chunk i's host unpack) must be a pure scheduling change: with a
     slot budget small enough to force several dispatch chunks, the
-    pipelined solve (default) and SO_TPU_PIPELINE=0 (depth-1, the
+    pipelined solve (default) and SO_JAX_PIPELINE=0 (depth-1, the
     configuration bench.py uses for its device-time estimate) must be
     bit-identical — plain, survey, and uniform-mass-off variants."""
-    from so_tpu.engine import solver
+    from so_jax.engine import solver
 
     rng = np.random.default_rng(17)
     clumps = [dict(center=rng.uniform(-0.45, 0.45, 3), n=300,
@@ -694,12 +664,12 @@ def test_pipelined_dispatch_matches_depth1(monkeypatch):
 
     for survey in (False, True):
         d0 = solver.DISPATCHES
-        monkeypatch.setenv("SO_TPU_PIPELINE", "0")
+        monkeypatch.setenv("SO_JAX_PIPELINE", "0")
         want = solve_rvir(grid, centers, rgtp, 178.0, survey=survey,
                           slot_budget=1 << 15)
         n_depth1 = solver.DISPATCHES - d0
         assert n_depth1 > 2, "slot budget did not force multiple chunks"
-        monkeypatch.setenv("SO_TPU_PIPELINE", "1")
+        monkeypatch.setenv("SO_JAX_PIPELINE", "1")
         got = solve_rvir(grid, centers, rgtp, 178.0, survey=survey,
                          slot_budget=1 << 15)
         for f in ("code", "mvir", "rvir", "j", "d2cut", "kcap"):
@@ -715,13 +685,12 @@ def test_rvir_reference_bits_matches_compiled_c(tmp_path):
     the 2*Rvir profile gather, conflict distance tests) is a strict f32
     compare against Rvir-derived values: a heavy zoom particle within an
     ulp of a bin edge flips visible profile mass (the at-scale zoom gate
-    caught the device cbrt doing exactly that — RESULTS_TPU.md
-    2026-08-19 12:06). Compile the reference's statements and compare
+    caught the device cbrt doing exactly that). Compile the reference's statements and compare
     bit-for-bit."""
     import ctypes
     import subprocess
 
-    from so_tpu.engine.solver import rvir_reference_bits
+    from so_jax.engine.solver import rvir_reference_bits
 
     src = tmp_path / "rvir_ref.c"
     src.write_text(
@@ -760,10 +729,9 @@ def test_whole_box_terminal_tier_bit_equal(monkeypatch):
     K > k_slab boundary, by the ladder-prefix equivalence (solver module
     docstring). Covers solve_rvir and solve_rvir_multi. This is the
     terminal tier that replaces the giant-K XLA fallback whose B=8/K=2^21
-    escalation OOM'd the 512^3 full-catalog run (RESULTS_TPU.md
-    2026-08-20)."""
-    from so_tpu.engine import multi as multi_mod
-    from so_tpu.engine import solver
+    escalation ran out of memory in the 512^3 full-catalog run."""
+    from so_jax.engine import multi as multi_mod
+    from so_jax.engine import solver
 
     rng = np.random.default_rng(93)
     d = make_clumpy_box(
@@ -844,7 +812,7 @@ def test_classify_counts_uniform_exact():
     ambiguous band cases defer (bit unset), never misclassify."""
     import jax.numpy as jnp
 
-    from so_tpu.engine import solver
+    from so_jax.engine import solver
 
     rng = np.random.default_rng(41)
     B, K, nm = 256, 512, 8

@@ -6,8 +6,8 @@ import struct
 import numpy as np
 import pytest
 
-from so_tpu.io.catalogs import read_gtp_list, read_mark, read_stat
-from so_tpu.io.tipsy import (DARK, GAS, STAR, DARK_DTYPE, GAS_DTYPE,
+from so_jax.io.catalogs import read_gtp_list, read_mark, read_stat
+from so_jax.io.tipsy import (DARK, GAS, STAR, DARK_DTYPE, GAS_DTYPE,
                              STAR_DTYPE, TipsyHeader, header_dtype,
                              read_tipsy, write_tipsy)
 
@@ -73,7 +73,7 @@ def test_roundtrip_multispecies():
 def test_segment_reader_matches_whole_file(tmp_path):
     """read_tipsy_segment(start, count) == read_tipsy slices for every
     species-boundary-straddling window, both endiannesses."""
-    from so_tpu.io.tipsy import read_tipsy_segment
+    from so_jax.io.tipsy import read_tipsy_segment
 
     rng = np.random.default_rng(9)
     n = (4, 6, 5)

@@ -119,7 +119,7 @@ def compare_sogtp(golden_path: str, got_path: str,
     pad, kd2.c:1297)."""
     import sys, os
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    from so_tpu.io.tipsy import STAR_DTYPE, read_header
+    from so_jax.io.tipsy import STAR_DTYPE, read_header
 
     def load(path):
         with open(path, "rb") as f:
